@@ -1,7 +1,7 @@
 """Test configuration: run everything on a virtual 8-device CPU mesh.
 
-Real-TPU execution is exercised separately by bench.py / the driver; unit and
-integration tests must be hermetic and able to validate multi-chip sharding
+GPU execution is exercised separately by chip_smoke.py and bench.py; unit and
+integration tests must be hermetic and able to validate multi-device sharding
 without hardware (SURVEY.md §4 test strategy, item d).
 """
 import os

@@ -1,4 +1,4 @@
-"""Binary bag-of-words place recognition, TPU-native.
+"""Binary bag-of-words place recognition, batched on the accelerator.
 
 Replaces the vendored DBoW2 stack (/root/reference/Thirdparty/DBoW2 —
 TemplatedVocabulary tree + BowVector/FeatureVector, used via

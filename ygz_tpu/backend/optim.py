@@ -1,11 +1,11 @@
 """Batched Gauss-Newton / Levenberg-Marquardt optimizers for SLAM.
 
-This is the TPU-native replacement for the reference's g2o stack
+This is the batched replacement for the reference's g2o stack
 (/root/reference/Thirdparty/g2o + src/Optimizer.cc): instead of a sparse
 pointer graph with CHOLMOD, problems are fixed-capacity arrays of residual
 blocks. Landmarks are eliminated with a dense-block Schur complement
-(H_pp - H_pl H_ll^-1 H_lp), which maps onto batched 3x3 inverses + einsums on
-the MXU; the reduced camera system (6P x 6P, P <= ~32 for local BA) is solved
+(H_pp - H_pl H_ll^-1 H_lp), which maps onto batched 3x3 inverses + einsums;
+the reduced camera system (6P x 6P, P <= ~32 for local BA) is solved
 densely.
 
 Ported behaviors (constants from SURVEY.md §A):
@@ -177,7 +177,7 @@ def solve_preconditioned(H, b):
     (H entries span ~1e0..1e10); a raw float32 solve loses the weakly
     conditioned directions (z-translation for fronto-parallel scenes) and
     Gauss-Newton stalls. Symmetric Jacobi scaling keeps the solve accurate in
-    float32 — the TPU-native alternative to double precision.
+    float32 — the accelerator-friendly alternative to double precision.
     """
     d = jnp.sqrt(jnp.maximum(jnp.diagonal(H), 1e-12))
     Hs = H / (d[:, None] * d[None, :])

@@ -1,7 +1,7 @@
 """Robust PnP for relocalization: batched linear-PnP RANSAC + GN polish.
 
 Replaces the reference's EPnP+RANSAC (/root/reference/src/PnPsolver.cc,
-used only by relocalization, src/Tracking.cc:1826-1978). TPU-first design:
+used only by relocalization, src/Tracking.cc:1826-1978). Batched design:
 instead of EPnP's control-point machinery iterated sequentially, ALL RANSAC
 hypotheses are solved simultaneously — each 6-point sample through the DLT
 (12x12 normal-equations eigenvector), rotations re-orthonormalized by SVD —

@@ -6,7 +6,7 @@ strong covisibility, 20 LM iterations) with a dense batched Gauss-Newton:
 per-edge 7-DoF residuals and Jacobians come from vmapped forward-mode
 autodiff (no hand-derived Sim3 Jacobians), the Hessian is scattered into a
 [7K x 7K] dense system (K <= few hundred keyframes) and solved with Jacobi
-preconditioning — small dense algebra that the MXU eats for breakfast.
+preconditioning — small dense algebra, cheap as batched matmuls.
 """
 from __future__ import annotations
 

@@ -1,6 +1,6 @@
 """Multi-level ORB feature extraction as one fused, batched pipeline.
 
-TPU-native replacement for ORBextractor (/root/reference/src/ORBextractor.cc):
+Batched replacement for ORBextractor (/root/reference/src/ORBextractor.cc):
 per pyramid level — FAST score map -> 3x3 NMS -> grid-capped top-k selection
 (the DSO-style selector semantics of ComputeKeyPointsDSOSingleLevel
 :1275-1386) -> IC-angle -> steered BRIEF on the blurred level — all compiled

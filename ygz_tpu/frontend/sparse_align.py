@@ -1,6 +1,6 @@
 """Sparse inverse-compositional image alignment (SVO-style direct tracking).
 
-TPU-native re-design of the reference SparseImgAlign
+Batched re-design of the reference SparseImgAlign
 (/root/reference/src/SparseImageAlign.cc: per-level Gauss-Newton on SE3 over
 4x4 patches around the previous frame's map points, Jacobians precomputed once
 per level in the reference frame :57-128, bilinear residuals :130-231, 6x6

@@ -2,7 +2,7 @@
 
 Replaces the reference's Sophus templates (/root/reference/Thirdparty/sophus/
 sophus/{so3,se3}.hpp) with a functional, batch-friendly formulation: rotations
-are stored as 3x3 matrices (matmul-friendly on the MXU), tangent vectors follow
+are stored as 3x3 matrices (matmul-friendly), tangent vectors follow
 the Sophus convention ``xi = [upsilon (trans), omega (rot)]``.
 
 All functions are written for unbatched inputs and are `vmap`-safe; the

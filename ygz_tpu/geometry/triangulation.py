@@ -4,7 +4,7 @@ Replaces the per-point SVD loops of the reference (Initializer::Triangulate,
 /root/reference/src/Initializer.cc, and LocalMapping::CreateNewMapPoints
 src/LocalMapping.cc:978-1217) with one batched op: the 4x4 normal equations
 A^T A are built for all points at once and solved with a batched symmetric
-eigendecomposition (smallest eigenvector), which maps well to XLA on TPU.
+eigendecomposition (smallest eigenvector), which maps well to XLA.
 """
 from __future__ import annotations
 

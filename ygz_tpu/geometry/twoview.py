@@ -1,6 +1,6 @@
 """Two-view relative geometry: batched H/F RANSAC + motion recovery.
 
-TPU-native re-design of the reference monocular initializer
+Batched re-design of the reference monocular initializer
 (/root/reference/src/Initializer.cc, include/Initializer.h:23-162): instead of
 200 sequential RANSAC iterations with per-iteration 8-point solves, ALL sample
 sets are solved simultaneously (vmapped 9x9 eigen-solves), all models are

@@ -2,9 +2,8 @@
 // prefetch.
 //
 // The reference's dataset mains decode images synchronously on the tracking
-// thread (cv::imread in Examples/*/mono_*.cc); at TPU tracking rates
-// (>1000 FPS device pipeline) Python-side PIL decoding becomes the
-// bottleneck. This module provides:
+// thread (cv::imread in Examples/*/mono_*.cc); at accelerator tracking
+// rates Python-side PIL decoding can become the bottleneck. This module provides:
 //   * decode_png_gray(path)            -> (bytes, h, w) 8-bit grayscale
 //   * Prefetcher(paths, ahead, threads) -> .get(i) -> (bytes, h, w)
 //     a worker pool that decodes frames ahead of the consumer, keeping the

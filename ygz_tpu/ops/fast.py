@@ -1,12 +1,12 @@
 """FAST-10 corner detection + corner scores + NMS + Shi-Tomasi, full-image.
 
-TPU-native replacement for the vendored libfast SSE2/NEON kernels
+Batched replacement for the vendored libfast SSE2/NEON kernels
 (/root/reference/Thirdparty/fast/include/fast/fast.h:20-31:
 fast_corner_detect_10[_sse2], fast_corner_score_10, fast_nonmax_3x3) and the
 Shi-Tomasi score in src/ORBextractor.cc:1152-1187. Instead of per-pixel
 branchy scans, the 16 Bresenham-circle taps become 16 shifted copies of the
 image and the arc-contiguity test becomes a reduction — one fused elementwise
-pipeline over the whole image, which is exactly what the VPU wants.
+pipeline over the whole image that XLA fuses.
 """
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import functools
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 
 # Bresenham circle of radius 3 — (dx, dy), clockwise from (0,-3) like the
 # classic FAST ordering (order only matters for contiguity, which is circular).
@@ -70,6 +71,26 @@ def fast_score_map(img, threshold: float = 20.0):
     return jnp.where(frame, score, 0.0)
 
 
+def fast_score_map_ref(img, threshold: float = 20.0):
+    """Plain numpy FAST-10 score, written independently of fast_score_map:
+    the score is the largest contrast v over any 10-tap arc — v = min(arc)
+    - I for a bright arc, I - max(arc) for a dark one — kept where v > t.
+    Equal to fast_score_map bit for bit on integer-valued images and
+    thresholds (only min/max and exact subtractions)."""
+    img = np.asarray(img, np.float32)
+    H, W = img.shape
+    c = img[3: H - 3, 3: W - 3]
+    ring = np.stack([img[3 + dy: H - 3 + dy, 3 + dx: W - 3 + dx]
+                     for dx, dy in CIRCLE])
+    ring = np.concatenate([ring, ring[: ARC - 1]])
+    lo = np.stack([ring[s: s + ARC].min(0) for s in range(16)]).max(0)
+    hi = np.stack([ring[s: s + ARC].max(0) for s in range(16)]).min(0)
+    v = np.maximum(lo - c, c - hi)
+    out = np.zeros_like(img)
+    out[3: H - 3, 3: W - 3] = np.where(v > threshold, v, 0.0)
+    return out
+
+
 def nonmax_3x3(score):
     """Keep only 3x3-neighbourhood maxima (ties broken towards keeping)."""
     neigh = score
@@ -85,8 +106,8 @@ def nonmax_3x3(score):
 def shi_tomasi_map(img, half_box: int = 4):
     """Shi-Tomasi (min eigenvalue of the structure tensor) over a
     (2*half_box)^2 box, full image — the reference computes this per-keypoint
-    (src/ORBextractor.cc:1152-1187); computing the full map is cheaper on TPU
-    and lets grid selection rank directly."""
+    (src/ORBextractor.cc:1152-1187); computing the full map is one fused
+    elementwise pass and lets grid selection rank directly."""
     dx = 0.5 * (_shift(img, 1, 0) - _shift(img, -1, 0))
     dy = 0.5 * (_shift(img, 0, 1) - _shift(img, 0, -1))
     dxx = dx * dx

@@ -1,6 +1,6 @@
 """Core image ops: bilinear sampling, remap, blur, gradients, pyramid.
 
-TPU-native replacement for the reference's per-frame OpenCV image path
+Batched replacement for the reference's per-frame OpenCV image path
 (Frame::ComputeImagePyramid /root/reference/src/Frame.cc:773-814 — pyramid +
 undistort remap; ORBextractor::ComputePyramid src/ORBextractor.cc:1129).
 Everything is a pure jnp function over [H,W] float32 images so the whole
@@ -115,7 +115,7 @@ def pyramid_scales(num_levels: int, scale_factor: float = 2.0):
 
 
 # --------------------------------------------------------- stacked pyramids
-# A pyramid travels over the device link as ONE [SH, W0] buffer: level l
+# A pyramid moves between host and device as ONE [SH, W0] buffer: level l
 # occupies rows row_off[l] : row_off[l]+H_l, columns 0:W_l (width padded
 # with zeros to W0). Static slicing unstacks it for free inside a trace, so
 # jitted consumers accept either representation (`as_levels`), and the host

@@ -3,7 +3,7 @@
 Replaces ORBextractor::ComputeKeyPointsDSOSingleLevel
 (/root/reference/src/ORBextractor.cc:1275-1386): adaptive-grid FAST selection
 with <=3 corners per cell, a 20-px border, and an occupancy mask around
-already-tracked points. The TPU formulation is fully static-shaped: the score
+already-tracked points. The batched formulation is fully static-shaped: the score
 map is tiled into cells, a per-cell top-k picks candidates, and a global top-k
 fills a fixed keypoint capacity with a validity mask (no dynamic compaction).
 """

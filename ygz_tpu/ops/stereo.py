@@ -2,7 +2,7 @@
 
 Replaces Frame::ComputeStereoMatches (/root/reference/src/Frame.cc:509-682:
 per-feature row-table candidate search + descriptor gate + 11x11 SAD with
-subpixel parabola). TPU formulation: every feature's left patch is correlated
+subpixel parabola). Batched formulation: every feature's left patch is correlated
 against its full disparity strip from the right image in one tensor op —
 [N, D] SAD surfaces -> argmin + parabola refinement, no per-feature loops.
 """

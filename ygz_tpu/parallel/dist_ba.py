@@ -1,7 +1,7 @@
 """Distributed bundle adjustment over a jax device Mesh.
 
 The reference has NO distributed computing (SURVEY.md §2.4) — this layer is
-the new TPU-native capability: bundle adjustment sharded across chips.
+a new capability: bundle adjustment sharded across devices.
 
 Design (landmark-block sharding + matrix-free distributed PCG — round 3;
 round 1 replicated the entire Schur pipeline, round 2 materialized and

@@ -1,6 +1,6 @@
 """Offline visualization: tracked-frame overlays and map/trajectory renders.
 
-The TPU-native counterpart of the reference's GUI stack
+The offline counterpart of the reference's GUI stack
 (/root/reference/src/FrameDrawer.cc — 2-D tracked-feature overlay with state
 text; src/MapDrawer.cc — OpenGL map points/keyframes/covisibility graph;
 src/Viewer.cc — the Pangolin window thread). A live window is out of scope
